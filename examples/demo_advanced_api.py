@@ -17,12 +17,12 @@ Run: python examples/demo_advanced_api.py
 import numpy as np
 import jax.numpy as jnp
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.models import inspector
-from open3d_slam_private_tpu.models import localizability as xicp
-from open3d_slam_private_tpu.ops import normals as normals_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.models import inspector
+from open3d_slam_jax.models import localizability as xicp
+from open3d_slam_jax.ops import normals as normals_mod
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def make_scene(rng, n=8000):

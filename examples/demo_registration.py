@@ -8,10 +8,10 @@ the transform and quality observables. Run:
 import numpy as np
 import jax.numpy as jnp
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models.cloud_registration import (
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models.cloud_registration import (
     CloudRegistrationConfig, register_clouds)
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def make_scene(rng, n=6000):

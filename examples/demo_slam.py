@@ -10,10 +10,10 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam import checkpoint
-from open3d_slam_private_tpu.slam.pipeline import SlamConfig, SlamPipeline
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam import checkpoint
+from open3d_slam_jax.slam.pipeline import SlamConfig, SlamPipeline
 
 
 def make_world(rng, n=30000):

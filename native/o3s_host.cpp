@@ -1,6 +1,6 @@
-// Native host runtime for open3d_slam_private_tpu.
+// Native host runtime for open3d_slam_jax.
 //
-// The reference's runtime is C++ end to end; in this framework the TPU owns
+// The reference's runtime is C++ end to end; in this framework the device owns
 // the compute path (JAX/XLA/Pallas) and this library owns the host-side
 // data plane, where Python costs real latency at 10 Hz:
 //

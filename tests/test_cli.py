@@ -9,7 +9,7 @@ import json
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu import cli
+from open3d_slam_jax import cli
 
 
 def test_list_modules(capsys):
@@ -71,7 +71,7 @@ def test_register_init_guess_and_save_transformed(tmp_path, capsys):
     t = np.array([0.8, -0.5, 0.1])
     reading = (ref - t) @ R  # reading = R^T (ref - t): T_true maps reading->ref
     pr, pd = tmp_path / "ref.ply", tmp_path / "read.ply"
-    from open3d_slam_private_tpu.io import load_cloud, save_cloud
+    from open3d_slam_jax.io import load_cloud, save_cloud
 
     save_cloud(str(pr), ref.astype(np.float32))
     save_cloud(str(pd), reading.astype(np.float32))
@@ -93,7 +93,7 @@ def test_register_init_guess_and_save_transformed(tmp_path, capsys):
 
 
 def test_register_rejects_bad_rotation(tmp_path, capsys):
-    from open3d_slam_private_tpu.io import save_cloud
+    from open3d_slam_jax.io import save_cloud
 
     p = tmp_path / "c.csv"
     save_cloud(str(p), np.zeros((4, 3), np.float32))

@@ -5,13 +5,13 @@ import jax
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.config import (
+from open3d_slam_jax.config import (
     icp_config_from_dict,
     icp_config_from_yaml,
     make_filter_chain,
     slam_config_from_dict,
 )
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.ops import pointcloud as pc
 
 REF_ICP_YAML = "/root/reference/open3d_slam_rsl/ros/open3d_slam_ros/param/icp.yaml"
 

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam import dense_map
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam import dense_map
 
 
 def test_insert_and_export(rng):

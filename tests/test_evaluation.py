@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu import evaluation
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
+from open3d_slam_jax import evaluation
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
 
 from tests.test_icp import BASE_CFG, make_surface_cloud
 
@@ -31,7 +31,7 @@ def test_evaluate_and_report(rng, tmp_path):
 
 
 def test_manifest_roundtrip(rng, tmp_path):
-    from open3d_slam_private_tpu.io import save_ply
+    from open3d_slam_jax.io import save_ply
 
     ref = make_surface_cloud(rng, 500)
     read = ref + np.float32([0.05, 0, 0])
@@ -55,7 +55,7 @@ def test_viz_png_roundtrip(tmp_path, rng):
     import struct as _struct
     import zlib as _zlib
 
-    from open3d_slam_private_tpu import viz
+    from open3d_slam_jax import viz
 
     pts = rng.uniform(-5, 5, size=(5000, 3)).astype(np.float32)
     pts[:, 2] = 0.2 * pts[:, 0]
@@ -81,7 +81,7 @@ def test_viz_png_roundtrip(tmp_path, rng):
 
 
 def test_viz_render_matches(tmp_path, rng):
-    from open3d_slam_private_tpu import viz
+    from open3d_slam_jax import viz
 
     src = rng.uniform(-1, 1, size=(300, 3))
     tgt = src + 0.1

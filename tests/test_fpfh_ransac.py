@@ -3,12 +3,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import ransac
-from open3d_slam_private_tpu.ops import fpfh, grid_hash
-from open3d_slam_private_tpu.ops import normals as normals_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.ops import filters
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import ransac
+from open3d_slam_jax.ops import fpfh, grid_hash
+from open3d_slam_jax.ops import normals as normals_mod
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.ops import filters
 
 
 def structured_scene(rng, n=3000):

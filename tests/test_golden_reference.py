@@ -7,7 +7,7 @@ transforms ``examples/data/icp_data/*.ref_trans`` with the same acceptance
 criterion: median |T_ours . data - T_golden . data| / median |T_ours . data|
 < 5% (homogeneous coordinates, like ``median_coeff``).
 
-Our chain uses the TPU ops (grid matcher, masked trimming) and mild
+Our chain uses the device ops (grid matcher, masked trimming) and mild
 downsampling for CPU test speed; the 5% criterion is designed to absorb
 such chain differences (the reference's own configs use random sampling).
 """
@@ -25,11 +25,11 @@ pytestmark = pytest.mark.skipif(
     not os.path.isdir(REF_DATA), reason="reference data not mounted"
 )
 
-from open3d_slam_private_tpu.io import load_vtk  # noqa: E402
-from open3d_slam_private_tpu.models import icp as icp_mod  # noqa: E402
-from open3d_slam_private_tpu.ops import filters, voxel  # noqa: E402
-from open3d_slam_private_tpu.ops import normals as normals_mod  # noqa: E402
-from open3d_slam_private_tpu.ops import pointcloud as pc  # noqa: E402
+from open3d_slam_jax.io import load_vtk  # noqa: E402
+from open3d_slam_jax.models import icp as icp_mod  # noqa: E402
+from open3d_slam_jax.ops import filters, voxel  # noqa: E402
+from open3d_slam_jax.ops import normals as normals_mod  # noqa: E402
+from open3d_slam_jax.ops import pointcloud as pc  # noqa: E402
 
 
 def load_golden(name):
@@ -106,7 +106,7 @@ import dataclasses  # noqa: E402
 import glob  # noqa: E402
 import math  # noqa: E402
 
-from open3d_slam_private_tpu.config import registry  # noqa: E402
+from open3d_slam_jax.config import registry  # noqa: E402
 
 ICP_DATA = os.path.join(REF_DATA, "icp_data")
 ALL_GOLDEN_YAMLS = sorted(
@@ -149,7 +149,7 @@ def _speed_overrides(cfg):
 @pytest.mark.skipif(
     jax.default_backend() != "cpu",
     reason="numerics-parity tier (one fresh XLA program per yaml chain) runs "
-    "on CPU; the TPU suite covers the 6-golden smoke above",
+    "on CPU, like the 6-golden smoke above",
 )
 @pytest.mark.parametrize("name", ALL_GOLDEN_YAMLS)
 def test_per_config_golden(raw_clouds, name):
@@ -178,7 +178,7 @@ def test_golden_force4dof(clouds):
     ref, read, read_full = clouds
     import dataclasses
 
-    from open3d_slam_private_tpu.ops import normals as normals_mod
+    from open3d_slam_jax.ops import normals as normals_mod
 
     golden = load_golden("force4DOFForPointToPlaneMinimizer")
     read_n = normals_mod.estimate_normals(read, knn=12, max_dist=2.0)
@@ -217,7 +217,7 @@ UNDILUTED_YAMLS = [
 @pytest.mark.skipif(
     jax.default_backend() != "cpu",
     reason="exact-brute parity tier runs on CPU (one fresh program per "
-    "chain; the TPU suite covers the production matchers)",
+    "chain)",
 )
 @pytest.mark.parametrize("name", UNDILUTED_YAMLS)
 def test_per_config_golden_undiluted(name):

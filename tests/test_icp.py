@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.models import minimizers
-from open3d_slam_private_tpu.models.localizability import DegeneracyConfig
-from open3d_slam_private_tpu.ops import normals as normals_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.models import minimizers
+from open3d_slam_jax.models.localizability import DegeneracyConfig
+from open3d_slam_jax.ops import normals as normals_mod
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def make_surface_cloud(rng, n=2000):
@@ -65,7 +65,7 @@ def test_point_to_plane_recovers_transform(rng):
     rot_err, trans_err = pose_error(res.transform, T_true)
     assert trans_err < 1e-3, trans_err
     assert rot_err < 1e-4, rot_err
-    # TPU float noise can keep the smoothed deltas marginally above the
+    # Accelerator float noise can keep the smoothed deltas marginally above the
     # (very tight) 1e-4 thresholds; accuracy is the real gate.
     assert bool(res.converged) or trans_err < 5e-4
     assert float(res.overlap_ratio) > 0.85
@@ -392,6 +392,42 @@ def test_pt2plane_moment_cached_matches_direct(rng):
         assert errs[False][1] < 1e-3, (extra, errs)
 
 
+def _production_icp(name):
+    from open3d_slam_jax.slam.mapper import MapperConfig
+    from open3d_slam_jax.slam.odometry import OdometryConfig
+
+    cfg = {"mapper_xicp": MapperConfig().icp, "odometry_hash": OdometryConfig().icp}[name]
+    # Small cloud: a table sized for it keeps the test fast.
+    return dataclasses.replace(
+        cfg, grid_table_size=1 << 12, max_match_dist=0.5, fused_kernel=False
+    )
+
+
+@pytest.mark.parametrize("chain", ["mapper_xicp", "odometry_hash"])
+def test_production_chain_moment_cached_matches_direct(rng, chain):
+    """The mapper's X-ICP chain and the odometry hash chain land on the same
+    transform with moment-cached rounds (their default linearisation) as
+    with the direct per-pair path."""
+    ref_pts = make_surface_cloud(rng, n=3000)
+    ref = with_normals(ref_pts, capacity=4096)
+    T_true = small_transform(0.02, 0.08)
+    reading_pts = np.asarray(
+        se3.apply_transform(se3.transform_inverse(T_true), jnp.asarray(ref_pts))
+    )
+    reading = pc.from_points(reading_pts, capacity=4096)
+    cfg = _production_icp(chain)
+    assert cfg.moment_cached
+    T = {}
+    for mc in (True, False):
+        res = icp_mod.register_pair(
+            reading, ref, jnp.eye(4), dataclasses.replace(cfg, moment_cached=mc)
+        )
+        T[mc] = np.asarray(res.transform)
+        rot_err, trans_err = pose_error(T[mc], T_true)
+        assert trans_err < 5e-3 and rot_err < 2e-3, (mc, rot_err, trans_err)
+    np.testing.assert_allclose(T[True], T[False], atol=5e-3)
+
+
 @pytest.mark.slow
 def test_gicp_moment_cached_matches_direct(rng):
     """Moment-cached GICP rounds (O(1) in-round iterations) must land on
@@ -494,7 +530,7 @@ def test_candidate_cached_with_good_prior_is_exact(rng):
 
 
 def test_inspector_trace_and_dump(rng, tmp_path):
-    from open3d_slam_private_tpu.models import inspector
+    from open3d_slam_jax.models import inspector
 
     ref_pts = make_surface_cloud(rng, 900)
     ref_b = with_normals(ref_pts)
@@ -629,7 +665,7 @@ def test_anderson_acceleration_reduces_iterations(rng):
     slow-converging problem and lands on the same pose."""
     import dataclasses
 
-    from open3d_slam_private_tpu.ops import normals as normals_mod
+    from open3d_slam_jax.ops import normals as normals_mod
 
     ref_pts = rng.uniform(-6, 6, size=(5000, 3)).astype(np.float32)
     ref_pts[:, 2] = 0.4 * np.sin(ref_pts[:, 0]) + 0.4 * np.cos(ref_pts[:, 1] * 0.7)

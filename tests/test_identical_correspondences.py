@@ -18,8 +18,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import minimizers
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import minimizers
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.slam.imu import ImuBuffer, ImuSignalLowPassFilter
+from open3d_slam_jax.slam.imu import ImuBuffer, ImuSignalLowPassFilter
 
 
 def test_attitude_level():

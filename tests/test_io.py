@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.io import (
+from open3d_slam_jax.io import (
     load_cloud,
     load_pcd,
     load_ply,
@@ -15,7 +15,7 @@ from open3d_slam_private_tpu.io import (
     save_pcd,
     save_ply,
 )
-from open3d_slam_private_tpu.io.pointcloud_io import save_vtk
+from open3d_slam_jax.io.pointcloud_io import save_vtk
 
 REF_DATA = "/root/reference/libpointmatcher/examples/data"
 

@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.spatial import cKDTree
 
-from open3d_slam_private_tpu.ops import grid_hash, knn
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.ops import grid_hash, knn
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def make_clouds(rng, n=500, m=800):
@@ -152,7 +152,7 @@ def test_grid_overflow_graceful(rng):
 
 
 def test_packed_cell_list_matches_exact(rng):
-    from open3d_slam_private_tpu.ops import cell_list
+    from open3d_slam_jax.ops import cell_list
 
     r = rng.uniform(-4, 4, size=(3000, 3)).astype(np.float32)
     nrm = rng.normal(size=(3000, 3)).astype(np.float32)
@@ -183,7 +183,7 @@ def test_packed_cell_list_matches_exact(rng):
 
 def test_cell_match_per_point_radius(rng):
     """KDTreeVarDistMatcher semantics: per-query search radii."""
-    from open3d_slam_private_tpu.ops import cell_list
+    from open3d_slam_jax.ops import cell_list
 
     r = rng.uniform(-3, 3, size=(2000, 3)).astype(np.float32)
     q = rng.uniform(-3, 3, size=(400, 3)).astype(np.float32)
@@ -205,7 +205,7 @@ def test_cell_match_per_point_radius(rng):
 def test_masked_candidate_match_same_pairs_as_compact(rng):
     """match_candidates_masked selects exactly the same (query, ref) pair set
     as the compact top-k selection, just in candidate-major layout."""
-    from open3d_slam_private_tpu.ops import cell_list, grid_hash
+    from open3d_slam_jax.ops import cell_list, grid_hash
 
     r = rng.uniform(-4, 4, size=(3000, 3)).astype(np.float32)
     nrm = rng.normal(size=(3000, 3)).astype(np.float32)

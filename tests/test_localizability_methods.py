@@ -21,12 +21,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.models import localizability as xicp
-from open3d_slam_private_tpu.models.localizability import DegeneracyConfig
-from open3d_slam_private_tpu.ops import normals as normals_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.models import localizability as xicp
+from open3d_slam_jax.models.localizability import DegeneracyConfig
+from open3d_slam_jax.ops import normals as normals_mod
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 @pytest.fixture
@@ -263,7 +263,7 @@ def test_registry_maps_method_names(tmp_path):
     """OptimizedEqualityConstraints (production icp.yaml) -> the binary
     'optimized' method with the yaml's thresholds; TernaryLevelDetection /
     EqualityConstraints -> the ternary 'equality_constraints' method."""
-    from open3d_slam_private_tpu.config import icp_config_from_yaml
+    from open3d_slam_jax.config import icp_config_from_yaml
 
     base = """
 readingDataPointsFilters: []

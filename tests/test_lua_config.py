@@ -7,8 +7,8 @@ import textwrap
 
 import pytest
 
-from open3d_slam_private_tpu.config import slam_config_from_lua
-from open3d_slam_private_tpu.config.lua import LuaError, load_lua, loads_lua
+from open3d_slam_jax.config import slam_config_from_lua
+from open3d_slam_jax.config.lua import LuaError, load_lua, loads_lua
 
 REF_PARAM = "/root/reference/open3d_slam_rsl/ros/open3d_slam_ros/param"
 SHIPPED = sorted(glob.glob(os.path.join(REF_PARAM, "param_*.lua")))
@@ -117,7 +117,7 @@ def test_robosense_values_carry_over():
     assert cfg.build_dense_map is False
 
     # A config loaded from lua constructs a working pipeline.
-    from open3d_slam_private_tpu.slam.pipeline import SlamPipeline
+    from open3d_slam_jax.slam.pipeline import SlamPipeline
 
     pipe = SlamPipeline(cfg)
     assert pipe.cfg.motion_compensation.scan_duration == pytest.approx(0.1)

@@ -9,10 +9,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam import multi_session as ms
-from open3d_slam_private_tpu.slam import submap_collection as sc
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam import multi_session as ms
+from open3d_slam_jax.slam import submap_collection as sc
 
 
 def make_world(rng, n=14000):
@@ -148,7 +148,7 @@ def test_coarse_align_sessions_recovers_offset(sessions):
 
 @pytest.mark.slow
 def test_find_constraints_mesh_sharded_matches_local(sessions):
-    """The pod-scale mode: pair refinement sharded over a "batch" mesh axis
+    """The multi-device mode: pair refinement sharded over a "batch" mesh axis
     must accept the same constraints as the local vmapped path."""
     import jax
     from jax.sharding import Mesh

@@ -4,7 +4,7 @@ builds, otherwise exercising the numpy fallback — both paths must agree)."""
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu import native
+from open3d_slam_jax import native
 
 
 def make_packet(rng, n=500, step=32):
@@ -83,7 +83,7 @@ def test_numpy_fallback_agrees(rng, monkeypatch):
 
 class TestSensorMsgs:
     def _msg(self, rng, n=200):
-        from open3d_slam_private_tpu.io import sensor_msgs as sm
+        from open3d_slam_jax.io import sensor_msgs as sm
 
         xyz = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
         t = np.linspace(0, 0.1, n).astype(np.float32)
@@ -100,7 +100,7 @@ class TestSensorMsgs:
         return sm.PointCloud2Like(buf.tobytes(), n, step, fields), xyz, t
 
     def test_deserialize(self, rng):
-        from open3d_slam_private_tpu.io import sensor_msgs as sm
+        from open3d_slam_jax.io import sensor_msgs as sm
 
         msg, xyz, t = self._msg(rng)
         batch = sm.deserialize(msg, capacity=256)
@@ -109,7 +109,7 @@ class TestSensorMsgs:
         np.testing.assert_allclose(np.asarray(batch.extras["times"][:200, 0]), t, atol=0)
 
     def test_roundtrip(self, rng):
-        from open3d_slam_private_tpu.io import sensor_msgs as sm
+        from open3d_slam_jax.io import sensor_msgs as sm
 
         msg, xyz, t = self._msg(rng)
         batch = sm.deserialize(msg, capacity=256)
@@ -121,7 +121,7 @@ class TestSensorMsgs:
         assert msg2.stamp == 1.5
 
     def test_missing_xyz_raises(self, rng):
-        from open3d_slam_private_tpu.io import sensor_msgs as sm
+        from open3d_slam_jax.io import sensor_msgs as sm
 
         msg, _, _ = self._msg(rng)
         bad = sm.PointCloud2Like(msg.data, msg.width, msg.point_step, msg.fields[:2])
@@ -133,7 +133,7 @@ def test_pointcloud2_rgb_roundtrip(rng):
     """Packed PCL rgb float (0x00RRGGBB) decodes to colors [N,3] in [0,1]
     and survives serialize->deserialize (≙ the color cases of the
     reference's RosPointCloud2DeserializerTest)."""
-    from open3d_slam_private_tpu.io import sensor_msgs as sm
+    from open3d_slam_jax.io import sensor_msgs as sm
 
     n = 64
     xyz = rng.uniform(-3, 3, (n, 3)).astype(np.float32)

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.ops import grid_hash, normals
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.ops import grid_hash, normals
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def test_eigh3x3_matches_numpy(rng):

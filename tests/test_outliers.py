@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.ops import outliers
+from open3d_slam_jax.ops import outliers
 
 
 def test_trimmed_dist_keeps_ratio(rng):

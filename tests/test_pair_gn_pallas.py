@@ -1,18 +1,14 @@
-"""Fused pair-GN Pallas kernel vs the XLA broadcast normal equations."""
-
-import os
-
-# Off-TPU the engine only takes the fused path with this opt-in (the
-# Pallas interpreter is slow but exact); set it before any registration.
-os.environ.setdefault("O3S_FUSED_INTERPRET", "1")
+"""Fused pair-GN Pallas kernel (Triton route) vs the XLA broadcast normal
+equations. On the CPU the kernel runs in the Pallas interpreter
+(``conftest`` sets ``interpret=True``)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.kernels.pair_gn_pallas import pair_gn_fused
-from open3d_slam_private_tpu.models import minimizers
-from open3d_slam_private_tpu.geometry import se3
+from open3d_slam_jax.kernels.pair_gn_pallas import pair_gn_fused
+from open3d_slam_jax.models import minimizers
+from open3d_slam_jax.geometry import se3
 
 
 def _setup(rng, n=700, k=8):
@@ -34,7 +30,7 @@ def test_fused_kernel_matches_xla(rng):
     A, b, sw, swr2, nok = pair_gn_fused(
         jnp.asarray(reading), jnp.asarray(q), jnp.asarray(nrm),
         jnp.asarray(valid), jnp.asarray(T), tau, max_d2,
-        tile=256, interpret=True,
+        block=256,
     )
     # XLA reference path
     src = np.asarray(se3.apply_transform(jnp.asarray(T), jnp.asarray(reading)))
@@ -56,7 +52,7 @@ def test_fused_kernel_no_trim(rng):
     A, b, sw, _, _ = pair_gn_fused(
         jnp.asarray(reading), jnp.asarray(q), jnp.asarray(nrm),
         jnp.asarray(valid), jnp.asarray(T), np.inf, np.inf,
-        tile=128, interpret=True,
+        block=128,
     )
     assert abs(float(sw) - valid.sum()) < 1e-3
     assert np.isfinite(np.asarray(A)).all() and np.isfinite(np.asarray(b)).all()
@@ -67,9 +63,9 @@ def test_fused_icp_matches_xla_path(rng):
     """icp_single with cfg.fused_kernel ~= the XLA cached path."""
     import dataclasses
 
-    from open3d_slam_private_tpu.models import icp as icp_mod
-    from open3d_slam_private_tpu.ops import normals as normals_mod
-    from open3d_slam_private_tpu.ops.pointcloud import from_points
+    from open3d_slam_jax.models import icp as icp_mod
+    from open3d_slam_jax.ops import normals as normals_mod
+    from open3d_slam_jax.ops.pointcloud import from_points
 
     ref_pts = rng.uniform(-6, 6, size=(6000, 3)).astype(np.float32)
     ref_pts[:, 2] = 0.2 * np.sin(ref_pts[:, 0]) + 0.2 * np.cos(ref_pts[:, 1] * 1.3)
@@ -102,9 +98,9 @@ def test_fused_icp_vmapped(rng):
 
     import jax
 
-    from open3d_slam_private_tpu.models import icp as icp_mod
-    from open3d_slam_private_tpu.ops import normals as normals_mod
-    from open3d_slam_private_tpu.ops.pointcloud import from_points
+    from open3d_slam_jax.models import icp as icp_mod
+    from open3d_slam_jax.ops import normals as normals_mod
+    from open3d_slam_jax.ops.pointcloud import from_points
 
     ref_pts = rng.uniform(-4, 4, size=(3000, 3)).astype(np.float32)
     # Bumpy surface: observable in all six DoF (a single plane is not).
@@ -137,10 +133,10 @@ def test_fused_xicp_matches_xla_path(rng):
 
     import jax
 
-    from open3d_slam_private_tpu.models import icp as icp_mod
-    from open3d_slam_private_tpu.models.localizability import DegeneracyConfig
-    from open3d_slam_private_tpu.ops import normals as normals_mod
-    from open3d_slam_private_tpu.ops.pointcloud import from_points
+    from open3d_slam_jax.models import icp as icp_mod
+    from open3d_slam_jax.models.localizability import DegeneracyConfig
+    from open3d_slam_jax.ops import normals as normals_mod
+    from open3d_slam_jax.ops.pointcloud import from_points
 
     pts = np.c_[rng.uniform(-6, 6, (2000, 2)),
                 0.3 * np.sin(rng.uniform(-6, 6, (2000, 1)))].astype(np.float32)
@@ -172,25 +168,31 @@ def test_fused_xicp_matches_xla_path(rng):
 
 
 def test_folded_kernel_matches_padded(rng):
-    """knn=1 folded layout (dense [8, N/8] streams) must produce the same
-    sums as the padded pair-major kernel and the XLA path."""
-    from open3d_slam_private_tpu.kernels.pair_gn_pallas import (
-        pair_gn_step, pair_gn_step_folded, prepare_pairs, prepare_pairs_folded,
-    )
+    """knn=1 pairs (the production chain's layout) give the same sums at
+    every block size, i.e. whatever the padding to the block."""
+    from open3d_slam_jax.kernels.pair_gn_pallas import pair_gn_fused
 
     reading, q, nrm, valid, T = _setup(rng, n=900, k=1)
-    max_d2 = 0.5**2
-    tau = 0.03
-    soa_p = prepare_pairs(jnp.asarray(reading), jnp.asarray(q),
-                          jnp.asarray(nrm), jnp.asarray(valid), tile=256)
-    soa_f = prepare_pairs_folded(jnp.asarray(reading), jnp.asarray(q),
-                                 jnp.asarray(nrm), jnp.asarray(valid), tile=128)
-    A_p, b_p, sw_p, swr2_p, nok_p = pair_gn_step(
-        soa_p, jnp.asarray(T), tau, max_d2, tile=256, interpret=True)
-    A_f, b_f, sw_f, swr2_f, nok_f = pair_gn_step_folded(
-        soa_f, jnp.asarray(T), tau, max_d2, tile=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(A_f), np.asarray(A_p), rtol=2e-5, atol=2e-4)
-    np.testing.assert_allclose(np.asarray(b_f), np.asarray(b_p), rtol=2e-5, atol=2e-4)
-    assert float(sw_f) == pytest.approx(float(sw_p), rel=1e-6)
-    assert float(swr2_f) == pytest.approx(float(swr2_p), rel=1e-4)
-    assert float(nok_f) == pytest.approx(float(nok_p), rel=1e-6)
+    outs = [
+        pair_gn_fused(
+            jnp.asarray(reading), jnp.asarray(q), jnp.asarray(nrm),
+            jnp.asarray(valid), jnp.asarray(T), 0.03, 0.5**2,
+            block=block,
+        )
+        for block in (128, 512, 1024)
+    ]
+    A_p, b_p, sw_p, swr2_p, nok_p = outs[0]
+    for A_f, b_f, sw_f, swr2_f, nok_f in outs[1:]:
+        np.testing.assert_allclose(np.asarray(A_f), np.asarray(A_p), rtol=2e-5, atol=2e-4)
+        np.testing.assert_allclose(np.asarray(b_f), np.asarray(b_p), rtol=2e-5, atol=2e-4)
+        assert float(sw_f) == pytest.approx(float(sw_p), rel=1e-6)
+        assert float(swr2_f) == pytest.approx(float(swr2_p), rel=1e-4)
+        assert float(nok_f) == pytest.approx(float(nok_p), rel=1e-6)
+
+
+def test_pair_gn_step_rejects_unpadded_pairs():
+    from open3d_slam_jax.kernels.pair_gn_pallas import pair_gn_step
+
+    soa = tuple(jnp.zeros((300,), jnp.float32) for _ in range(10))
+    with pytest.raises(ValueError, match="multiple of block"):
+        pair_gn_step(soa, jnp.eye(4), 0.1, 0.1, block=256, interpret=True)

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam.mapper import MapperConfig
-from open3d_slam_private_tpu.slam.odometry import OdometryConfig
-from open3d_slam_private_tpu.slam.pipeline import SlamConfig, SlamPipeline
-from open3d_slam_private_tpu.slam.place_recognition import PlaceRecognitionConfig
-from open3d_slam_private_tpu.slam.submap_collection import SubmapCollectionConfig
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam.mapper import MapperConfig
+from open3d_slam_jax.slam.odometry import OdometryConfig
+from open3d_slam_jax.slam.pipeline import SlamConfig, SlamPipeline
+from open3d_slam_jax.slam.place_recognition import PlaceRecognitionConfig
+from open3d_slam_jax.slam.submap_collection import SubmapCollectionConfig
 
 
 def make_world(rng):
@@ -193,7 +193,7 @@ def test_loop_closure_fires_and_corrects(rng):
 def test_checkpoint_resume_bitexact(rng, tmp_path):
     """Save mid-run, restore into a fresh pipeline, continue: the resumed
     run must track the uninterrupted run exactly."""
-    from open3d_slam_private_tpu.slam import checkpoint
+    from open3d_slam_jax.slam import checkpoint
 
     world = make_world(rng)
     cfg = small_config()
@@ -295,7 +295,7 @@ def test_online_runner_matches_offline(rng):
     including IMU ingestion and external odometry pass-through."""
     import time as time_mod
 
-    from open3d_slam_private_tpu.slam.pipeline import OnlineSlamRunner
+    from open3d_slam_jax.slam.pipeline import OnlineSlamRunner
 
     world = make_world(rng)
     cfg = dataclasses.replace(small_config(), use_external_odometry=True,

@@ -13,9 +13,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam.pipeline import (
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam.pipeline import (
     MotionCompensationConfig,
     SlamConfig,
     SlamPipeline,

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.geometry import se3
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.geometry import se3
 
 
 def test_from_points_pad(rng):
@@ -140,7 +140,7 @@ def test_organized_index_grid_roundtrip():
 def test_organized_surface_normal_uses_grid():
     """The registry's OrganizedCloudSurfaceNormal consumes the batch's own
     index grid (no rows/cols needed) and produces plane normals."""
-    from open3d_slam_private_tpu.config import registry
+    from open3d_slam_jax.config import registry
 
     h, w = 16, 16
     img = np.zeros((h, w, 3), np.float32)

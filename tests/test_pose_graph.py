@@ -2,8 +2,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.slam import pose_graph as pg
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.slam import pose_graph as pg
 
 
 def T_of(twist):

@@ -11,12 +11,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from open3d_slam_private_tpu.config import registry
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.models.icp import _reading_step_mask
-from open3d_slam_private_tpu.ops import cell_list as cell_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.config import registry
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.models.icp import _reading_step_mask
+from open3d_slam_jax.ops import cell_list as cell_mod
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 @pytest.fixture
@@ -92,8 +92,8 @@ def test_reading_step_chain_matches_prefiltered(rng):
                               ("removeInside", 0))),)
     cfg_f = dataclasses.replace(base, reading_step_filters=chain)
 
-    from open3d_slam_private_tpu.ops import normals as normals_mod
-    from open3d_slam_private_tpu.ops import grid_hash
+    from open3d_slam_jax.ops import normals as normals_mod
+    from open3d_slam_jax.ops import grid_hash
     g = grid_hash.build_grid(ref_b.padded_xyz(), ref_b.mask, 1.0, 1 << 12, 32)
     ref_b = normals_mod.estimate_normals_grid(ref_b, g, knn=8, max_dist=1.0)
 
@@ -166,8 +166,8 @@ def test_cell_list_overflow_counter(rng):
 def test_match_row_saturation_surfaces(rng):
     """Row saturation reads high under capacity pressure (dense map, tiny
     cap) and ~0 when the lists have headroom (sparse map, large cap)."""
-    from open3d_slam_private_tpu.ops import normals as normals_mod
-    from open3d_slam_private_tpu.ops import grid_hash
+    from open3d_slam_jax.ops import normals as normals_mod
+    from open3d_slam_jax.ops import grid_hash
 
     def prep(points, capacity):
         b = pc.from_points(points.astype(np.float32), capacity=capacity)

@@ -13,17 +13,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam.mapper import MapperConfig
-from open3d_slam_private_tpu.slam.odometry import OdometryConfig
-from open3d_slam_private_tpu.slam.pipeline import (
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam.mapper import MapperConfig
+from open3d_slam_jax.slam.odometry import OdometryConfig
+from open3d_slam_jax.slam.pipeline import (
     MotionCompensationConfig,
     SlamConfig,
     SlamPipeline,
 )
-from open3d_slam_private_tpu.slam.realtime import (
+from open3d_slam_jax.slam.realtime import (
     IDX_INSERTED,
     IDX_OCCUPANCY,
     IDX_POSE,
@@ -31,7 +31,7 @@ from open3d_slam_private_tpu.slam.realtime import (
     rt_init,
     rt_step,
 )
-from open3d_slam_private_tpu.slam.submap_collection import SubmapCollectionConfig
+from open3d_slam_jax.slam.submap_collection import SubmapCollectionConfig
 
 
 def synth_scene(n, seed=0):
@@ -209,7 +209,7 @@ def test_packed_h2d_mode_matches_pytree():
 
 
 def test_pack_scan_u16_roundtrip():
-    from open3d_slam_private_tpu.slam.realtime import (
+    from open3d_slam_jax.slam.realtime import (
         _unpack_scan_u16, pack_scan_u16)
 
     rng = np.random.default_rng(3)
@@ -254,10 +254,10 @@ def test_pose_graph_solve_applies_nonzero_increment():
     constraint that contradicts the anchor chain MUST move the graph, be
     recorded in solve_log, transform the stored banks/anchors, and
     retroactively correct the recorded trajectory."""
-    from open3d_slam_private_tpu.slam import place_recognition as pr_mod
-    from open3d_slam_private_tpu.slam import submap as submap_mod
-    from open3d_slam_private_tpu.slam.realtime import FrameRecord
-    from open3d_slam_private_tpu.slam.submap_collection import SubmapEntry
+    from open3d_slam_jax.slam import place_recognition as pr_mod
+    from open3d_slam_jax.slam import submap as submap_mod
+    from open3d_slam_jax.slam.realtime import FrameRecord
+    from open3d_slam_jax.slam.submap_collection import SubmapEntry
 
     cfg = small_cfg(loop_closure=True)
     rt = RealtimePipeline(cfg, loop_closure_async=False)

@@ -6,7 +6,7 @@ import pytest
 
 import numpy as np
 
-from open3d_slam_private_tpu.io import rosbag, sensor_msgs
+from open3d_slam_jax.io import rosbag, sensor_msgs
 
 
 def _hdr(**kv) -> bytes:
@@ -165,7 +165,7 @@ def _lz4_frame_store(data: bytes) -> bytes:
 
 
 def test_lz4_frame_and_block_decode():
-    from open3d_slam_private_tpu import native as nat
+    from open3d_slam_jax import native as nat
 
     # Hand-crafted compressed block: token(lit=4, match=8) + "abcd" +
     # offset 4 -> "abcdabcdabcd", then a literal-only tail "WXYZ".

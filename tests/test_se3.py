@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 from scipy.spatial.transform import Rotation as ScipyRot
 
-from open3d_slam_private_tpu.geometry import se3
+from open3d_slam_jax.geometry import se3
 
 
 def random_rotations(rng, n):

@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.geometry import se3
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam import motion_compensation as mc
-from open3d_slam_private_tpu.slam import submap as submap_mod
-from open3d_slam_private_tpu.slam.transform_buffer import TransformInterpolationBuffer
+from open3d_slam_jax.geometry import se3
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam import motion_compensation as mc
+from open3d_slam_jax.slam import submap as submap_mod
+from open3d_slam_jax.slam.transform_buffer import TransformInterpolationBuffer
 
 
 def T_of(twist):
@@ -174,7 +174,7 @@ class TestCloudRegistrationFacade:
         import sys
         sys.path.insert(0, '/root/repo/tests')
         from test_icp import make_surface_cloud, small_transform, pose_error
-        from open3d_slam_private_tpu.models.cloud_registration import (
+        from open3d_slam_jax.models.cloud_registration import (
             CloudRegistrationConfig, register_clouds,
         )
         ref_pts = make_surface_cloud(rng, 1200)
@@ -195,7 +195,7 @@ class TestCloudRegistrationFacade:
             assert trans_err < 8e-3, (rt, trans_err)
 
     def test_unknown_type_raises(self):
-        from open3d_slam_private_tpu.models.cloud_registration import (
+        from open3d_slam_jax.models.cloud_registration import (
             CloudRegistrationConfig,
         )
         import pytest
@@ -205,10 +205,10 @@ class TestCloudRegistrationFacade:
 
 class TestConstraintBuilders:
     def test_odometry_constraints(self, rng):
-        from open3d_slam_private_tpu.slam.constraint_builders import (
+        from open3d_slam_jax.slam.constraint_builders import (
             build_odometry_constraints, overlap_fraction,
         )
-        from open3d_slam_private_tpu.slam.submap_collection import (
+        from open3d_slam_jax.slam.submap_collection import (
             SubmapCollection, SubmapCollectionConfig,
         )
         coll = SubmapCollection(SubmapCollectionConfig(
@@ -228,7 +228,7 @@ class TestConstraintBuilders:
             assert c.T_parent_child[0, 3] > 0
 
     def test_overlap_fraction(self, rng):
-        from open3d_slam_private_tpu.slam.constraint_builders import overlap_fraction
+        from open3d_slam_jax.slam.constraint_builders import overlap_fraction
         a = pc.from_points(rng.uniform(0, 2, (500, 3)).astype(np.float32))
         b_same = pc.from_points(rng.uniform(0, 2, (800, 3)).astype(np.float32))
         b_far = pc.from_points((rng.uniform(0, 2, (800, 3)) + 50).astype(np.float32))

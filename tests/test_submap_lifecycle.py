@@ -11,9 +11,9 @@ import dataclasses
 import numpy as np
 import pytest
 
-from open3d_slam_private_tpu.ops import pointcloud as pc
-from open3d_slam_private_tpu.slam.pipeline import SlamPipeline
-from open3d_slam_private_tpu.slam.submap_collection import (
+from open3d_slam_jax.ops import pointcloud as pc
+from open3d_slam_jax.slam.pipeline import SlamPipeline
+from open3d_slam_jax.slam.submap_collection import (
     SubmapCollection,
     SubmapCollectionConfig,
 )

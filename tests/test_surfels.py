@@ -4,9 +4,9 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from open3d_slam_private_tpu.models import icp as icp_mod
-from open3d_slam_private_tpu.ops import surfels
-from open3d_slam_private_tpu.ops.pointcloud import PointBatch, from_points
+from open3d_slam_jax.models import icp as icp_mod
+from open3d_slam_jax.ops import surfels
+from open3d_slam_jax.ops.pointcloud import PointBatch, from_points
 
 
 def _plane_cloud(rng, n=2000, extent=4.0, z=0.0, noise=0.0):
@@ -80,7 +80,7 @@ def test_force2d_registration_recovers_yaw_xy(rng):
         knn=8, max_match_dist=0.7, max_iterations=30, force_2d=True,
         matcher="brute",
     )
-    from open3d_slam_private_tpu.ops import normals as normals_mod
+    from open3d_slam_jax.ops import normals as normals_mod
 
     reading = from_points(jnp.asarray(pts), capacity=8192)
     ref_batch = normals_mod.estimate_normals(

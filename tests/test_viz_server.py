@@ -13,8 +13,8 @@ import zlib
 
 import numpy as np
 
-from open3d_slam_private_tpu import viz
-from open3d_slam_private_tpu.viz_server import VizServer
+from open3d_slam_jax import viz
+from open3d_slam_jax.viz_server import VizServer
 
 
 def _get(url: str) -> bytes:

@@ -2,8 +2,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from open3d_slam_private_tpu.ops import filters, voxel
-from open3d_slam_private_tpu.ops import pointcloud as pc
+from open3d_slam_jax.ops import filters, voxel
+from open3d_slam_jax.ops import pointcloud as pc
 
 
 def voxel_oracle(points, size):

@@ -5,7 +5,7 @@ Three protocols, one CSV report:
 1. **Pair protocol** (≙ ``evaluations/eval_solution.cpp``): registration
    cases over the REAL Hokuyo / car clouds shipped with the reference
    (``libpointmatcher/examples/data``), run through
-   :mod:`open3d_slam_private_tpu.evaluation` — the same code path as
+   :mod:`open3d_slam_jax.evaluation` — the same code path as
    ``cli.py evaluate``. Ground truth is the checked-in golden
    ``.ref_trans`` for the 00000->00001 pair, and exact known perturbations
    (recovery protocol) for the remaining real clouds.
@@ -47,12 +47,12 @@ REF_DATA = "/root/reference/libpointmatcher/examples/data"
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from open3d_slam_private_tpu import evaluation  # noqa: E402
-from open3d_slam_private_tpu.geometry import se3  # noqa: E402
-from open3d_slam_private_tpu.io import load_cloud  # noqa: E402
-from open3d_slam_private_tpu.models import icp as icp_mod  # noqa: E402
-from open3d_slam_private_tpu.models.localizability import DegeneracyConfig  # noqa: E402
-from open3d_slam_private_tpu.ops import pointcloud as pc  # noqa: E402
+from open3d_slam_jax import evaluation  # noqa: E402
+from open3d_slam_jax.geometry import se3  # noqa: E402
+from open3d_slam_jax.io import load_cloud  # noqa: E402
+from open3d_slam_jax.models import icp as icp_mod  # noqa: E402
+from open3d_slam_jax.models.localizability import DegeneracyConfig  # noqa: E402
+from open3d_slam_jax.ops import pointcloud as pc  # noqa: E402
 
 
 PAIR_CFG = icp_mod.ICPConfig(
@@ -190,14 +190,14 @@ def _traj_errors(rows):
 
 
 def _make_pipeline(creation_radius=25.0, activation_radius=27.0, loop_closure=False):
-    from open3d_slam_private_tpu.slam.mapper import MapperConfig
-    from open3d_slam_private_tpu.slam.odometry import OdometryConfig
-    from open3d_slam_private_tpu.slam.pipeline import (
+    from open3d_slam_jax.slam.mapper import MapperConfig
+    from open3d_slam_jax.slam.odometry import OdometryConfig
+    from open3d_slam_jax.slam.pipeline import (
         MotionCompensationConfig,
         SlamConfig,
         SlamPipeline,
     )
-    from open3d_slam_private_tpu.slam.submap_collection import SubmapCollectionConfig
+    from open3d_slam_jax.slam.submap_collection import SubmapCollectionConfig
 
     icp_map = dataclasses.replace(
         icp_mod.ICPConfig(
@@ -256,7 +256,7 @@ def run_sim_sequence(ramped: bool, n_frames=40, n_pts=8192):
 def build_real_world():
     """Protocol 3 world: the three bundled Hokuyo scans ICP-merged into one
     cloud (0.08 m voxel) in cloud.00000's frame."""
-    from open3d_slam_private_tpu.native import voxel_downsample_host
+    from open3d_slam_jax.native import voxel_downsample_host
 
     base, _ = load_cloud(os.path.join(REF_DATA, "cloud.00000.vtk"))
     parts = [base]
@@ -290,7 +290,7 @@ def run_real_sequence(n_frames=330, n_pts=16384):
     import dataclasses as _dc
 
     from bench import _pipeline_cfg
-    from open3d_slam_private_tpu.slam.realtime import RealtimePipeline
+    from open3d_slam_jax.slam.realtime import RealtimePipeline
 
     world = build_real_world()
     cfg = _pipeline_cfg(loopy=False)
@@ -373,7 +373,7 @@ def run_lc_efficacy(n_pts=8192, laps=2):
     import dataclasses as _dc
 
     from bench import _ate, _pipeline_cfg, corridor_frames, corridor_world
-    from open3d_slam_private_tpu.slam.realtime import RealtimePipeline
+    from open3d_slam_jax.slam.realtime import RealtimePipeline
 
     scene = corridor_world(240_000)
     frames, gts, lb = corridor_frames(scene, n_pts=n_pts, laps=laps)
